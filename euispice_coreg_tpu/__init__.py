@@ -1,5 +1,5 @@
-"""euispice_coreg_tpu — TPU-native coalignment framework for Solar Orbiter
-imagery, a ground-up JAX/XLA rebuild of the capabilities of
+"""euispice_coreg_tpu — accelerator-native coalignment framework for Solar
+Orbiter imagery, a ground-up JAX/XLA rebuild of the capabilities of
 ``adolliou/euispice_coreg`` (see SURVEY.md).
 
 Public import surface mirrors the reference

@@ -8,7 +8,7 @@ TAN (gnomonic) projection and the PC-matrix affine are implemented directly in
 LONPOLE=180 for zenithal projections), so the per-lag world->pixel map runs
 on-device, vmapped over the whole lag hypercube.
 
-All angles are in DEGREES.  Functions are dtype-polymorphic (float32 on TPU,
+All angles are in DEGREES.  Functions are dtype-polymorphic (float32 on device,
 float64 on CPU for parity tests) and broadcast over batched WCS parameters,
 so ``jax.vmap`` over a lag axis works out of the box.
 

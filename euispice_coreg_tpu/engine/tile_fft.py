@@ -2,9 +2,9 @@
 
 The Carrington select path scores L lags by sampling a pre-warped canvas
 through per-lag quadratic displacement fields (engine/carrington.py
-``_carrington_select``).  The fused Pallas kernel (engine/pallas_quad.py)
-is exact but inherently per-lag: ~0.35 ms/lag at 2048^2, near the VPU
-roofline for per-pixel select sampling — 14641 lags cost ~5 s.
+``_carrington_select``).  The exact evaluator
+(``carrington.evaluate_quad_lags``) is inherently per-lag: ~0.12 ms/lag at
+2048^2 on an H100, so a 121x121 grid costs ~1.8 s.
 
 This module factorizes the whole lag grid over tile-local FFT correlation
 surfaces instead (replacing the reference's one-full-reprojection-per-lag
@@ -15,8 +15,8 @@ loop, ``/root/reference/euispice_coreg/hdrshift/alignment.py:889-937``):
   fractional spline weights;
 * per tile, every masked-Pearson sum then factorizes over cross-correlation
   surfaces between the ref tile and the (shifted) canvas fields, exactly as
-  in engine/fast_corr.py — 58 forward FFTs + 66 partial inverses per tile,
-  all MXU matmul-DFTs, evaluated once for ALL lags;
+  in engine/fast_corr.py — 58 forward FFTs + 66 box-restricted inverse
+  DFTs per tile, evaluated once for ALL lags;
 * per (tile, lag): one row-gather of the 66 surface values at the tile's
   integer offset + the fractional tap-weight combination.
 
@@ -27,7 +27,7 @@ oversampling factor) must stay below ``tol_det``, the same 0.05 px scale
 the helioprojective FFT fast path enforces globally
 (fast_corr.MAX_DISPLACEMENT_SPREAD_PX).  The tile size is chosen
 adaptively; if no size meets the bound the caller falls back to the exact
-Pallas/select path.  Tests pin argmax parity and value agreement against
+per-lag evaluator.  Tests pin argmax parity and value agreement against
 the exact engine.
 """
 from __future__ import annotations
@@ -38,9 +38,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import precise_fft
 from ..utils import obs
-from . import pallas_quad as _pq
 
 # Within-tile sampling-position tolerance, DETECTOR pixels.  Same role as
 # fast_corr.MAX_DISPLACEMENT_SPREAD_PX (which gates the global-constant
@@ -48,8 +46,9 @@ from . import pallas_quad as _pq
 # deviations are near-antisymmetric about the tile center, so their net
 # effect on the tile's correlation sums cancels to first order.  Empirical
 # calibration on the 2048^2 bench config: at 0.12 det-px deviation
-# (T=256) the near-peak correlation difference vs the exact Pallas kernel
-# is ~1e-6 — three orders below the value changes the Gaussian sub-pixel
+# (T=256) the near-peak correlation difference vs the exact per-lag
+# evaluator is ~1e-6 — three orders below the value changes the Gaussian
+# sub-pixel
 # fit responds to — and the total error stays dominated by the select
 # path's shared pre-warp double interpolation.
 TOL_DET_PX = 0.15
@@ -59,42 +58,37 @@ TOL_DET_PX = 0.15
 # rejects sizes whose within-tile displacement variation is too large.
 # 1024/768 matter for pick_tile_shape: an anisotropic deviation lets ONE
 # axis grow far past the square limit (fewer tiles, same accuracy).
-# 96/64 widen the path to WEAKLY-oversampled Carrington grids (the r03
+# 96/64 widen the path to WEAKLY-oversampled Carrington grids (the
 # coarse-grid fallback regime): their deviation is strongly anisotropic
 # (lon-axis dominated), so a narrow-wide rectangle like (384, 64) passes
 # the detector-px gate where every >=128 square fails — without them those
-# grids pay the exact Pallas kernel at ~0.37 ms/lag (~5.5 s per 121x121).
+# grids pay the exact per-lag evaluator for every lag.
 _TILE_SIZES = (1024, 768, 512, 384, 256, 192, 128, 96, 64)
 # Weakly-oversampled grids (scale_det_per_grid ~ 0.15-0.3) need 64-px
 # tiles to meet the detector-px gate (within-tile deviation halves vs 128),
 # which is ~1k tiles at 2048^2 — the stage-1 working set is bounded by the
-# HBM budget guard below, not by the tile count, so the cap only has to
+# memory budget guard below, not by the tile count, so the cap only has to
 # stop degenerate thousands-of-tiny-tiles picks.
 _MAX_TILES = 1100
 
-# Hard ceiling on the stage-1 HBM working set (GB; env-overridable).  The
-# dominant resident terms are the stacked per-tile surface boxes
+# Share of the device's allocatable memory the stage-1 working set may
+# use.  The dominant resident terms are the stacked per-tile surface boxes
 # (n_tiles x n_surf x by x bx) and the globally padded r field stack.  On
 # wide lag grids over strongly oversampled canvases the per-tile offset
 # span approaches the LAG span in grid px (e.g. +-121 arcsec at ~0.05
 # arcsec/grid-px = +-2470 px), so the dense correlation boxes dwarf the
 # tiles themselves: hundreds of GB of surface for ~14k needed offsets.
-# The factorization is simply the wrong shape there (the surface is
-# ~0.3% utilized) and must decline to the exact per-lag kernels instead
-# of letting XLA fail the allocation (v5e HBM is 16 GB; 6 GB leaves room
-# for the canvases, the padded r stack transient and XLA's own slack).
-_MEM_BUDGET_GB_DEFAULT = 6.0
+# The factorization is the wrong shape there (the surface is ~0.3%
+# utilized) and must decline to the exact per-lag evaluator instead of
+# letting XLA fail the allocation; the remaining share covers the
+# canvases, the padded r stack transient and XLA's own slack.
+_MEM_BUDGET_FRACTION = 0.375
 
 
-def _mem_budget_bytes() -> float:
-    raw = _os.environ.get("EUICOREG_TILEFFT_MEM_GB", "")
-    try:
-        return (float(raw) if raw else _MEM_BUDGET_GB_DEFAULT) * 1e9
-    except ValueError:
-        import warnings
+def _mem_budget_bytes(device=None) -> float:
+    from ..utils.jaxcfg import device_memory_bytes
 
-        warnings.warn(f"ignoring malformed EUICOREG_TILEFFT_MEM_GB={raw!r}")
-        return _MEM_BUDGET_GB_DEFAULT * 1e9
+    return _MEM_BUDGET_FRACTION * device_memory_bytes(device)
 
 
 def _plane_counts(order: int) -> tuple[int, int]:
@@ -105,14 +99,14 @@ def _plane_counts(order: int) -> tuple[int, int]:
     return 3 + 2 * nt + npairs, 1 + nt + npairs
 
 
-def _hbm_group_plan(order, by, bx, Htot, Wtot, itemsize, batch):
-    """Shared HBM working-set planner for the evaluator's guard and the
+def _mem_group_plan(order, by, bx, Htot, Wtot, itemsize, batch):
+    """Shared working-set planner for the evaluator's memory guard and the
     hybrid picker's screen (one source of truth so the two cannot drift).
 
     The dominant allocations are the padded r stack (n_rf, Htot, Wtot) and
     the resident per-tile surface boxes (group, n_surf, by, bx); stage-1
-    transients scale with ``batch`` only and ride the outer HBM slack the
-    budget already reserves (see _MEM_BUDGET_GB_DEFAULT).  ``group`` is the
+    transients scale with ``batch`` only and ride the slack the budget
+    already reserves (see _MEM_BUDGET_FRACTION).  ``group`` is the
     largest number of tiles whose boxes fit beside the r stack, rounded
     down to a multiple of ``batch`` (the scan step size).
 
@@ -129,50 +123,38 @@ def _hbm_group_plan(order, by, bx, Htot, Wtot, itemsize, batch):
     return group, rpad_bytes, bt
 
 
-# Planning throughput for _est_stage1_seconds' FLOP model (which counts
-# n_tiles x (n_surf + n_rf + 3) planes x two direct real-folded stages).
-# The r05 measured rate on the bench shapes (24 tiles of 384x512, 896x1152
-# transforms, all planes ~1.35e13 nominal FLOP in 0.31 s) is ~43 TFLOP/s
-# nominal — ~66% MXU in bf16-pass terms — so 20e12 is a deliberate ~2x
-# conservative margin: estimates overstate cost, declines stay safe.  Used
-# only for host-side PLANNING (shape ranking, hybrid worth-it screen,
-# decline of pathologically-shaped factorizations), never for reporting.
-_EST_TFLOPS = 20e12
-_MAX_STAGE1_SECONDS = 15.0
+# Planning cost of the per-tile transforms, seconds per plane-pixel of
+# transform area: _est_stage1_seconds counts n_tiles x (n_surf + n_rf + 3)
+# planes of my x mx.  Measured on an NVIDIA H100 80GB HBM3 at a 400 W power
+# limit: the whole evaluator (stage 1 + stage 2, tile batch 4) scored the
+# 0.5-arcsec 121x121 Carrington grid at 2048^2 in 0.136 s over 24 tiles of
+# 896x1152 transforms, i.e. 4.4e-11 s per plane-pixel (PERF.md).  Used only
+# for host-side PLANNING (the screens against the exact evaluator), never
+# for reporting.
+_EST_S_PER_PLANE_PX = 4.4e-11
 
-# measured warm cost of the exact Pallas quad kernel on the 2048^2 bench
-# canvases (BENCH_r05 coarse leg: mx=my=1 bucket 0.47 ms/lag, mx=2 bucket
-# 0.61 ms/lag).  Planning constant for the hybrid picker's is-it-worth-it
-# screen, never used for reporting.
-_EST_PALLAS_S_PER_LAG = 4e-4
+# Planning cost of the exact per-lag evaluator (carrington.evaluate_quad_
+# lags) per lag on a 2048^2 canvas: 1.2e-4 s at a 700 W and 1.3e-4 s at a
+# 400 W power limit, measured on the coarse 121x121 Carrington grid on an
+# NVIDIA H100 80GB HBM3; scaled by canvas area for other shapes.  Used by
+# the screens, never for reporting.
+_EST_EXACT_S_PER_LAG_2048 = 1.3e-4
+
+
+def _est_exact_seconds(n_lags: int, h: int, w: int) -> float:
+    return n_lags * _EST_EXACT_S_PER_LAG_2048 * (h * w) / 2048.0 ** 2
 
 
 def _est_stage1_seconds(n_tiles: int, n_planes: int, my: int, mx: int):
-    """Estimated wall-clock of the per-tile forward DFT matmuls: two direct
-    real-folded stages per plane, 2*my^2*mx + 2*mx^2*my FLOP each."""
-    fl = n_tiles * n_planes * 2.0 * (my * my * mx + mx * mx * my)
-    return fl / _EST_TFLOPS
-
-# stage-1 tiles per scan step (see evaluate_select_tile_fft's tile_batch)
-import os as _os
-
-def _env_tile_batch() -> int:
-    # default 1: at the rectangular 384x512 bench tiles the batched scan
-    # LOSES at evaluator level (340 ms @ batch 1 vs 396 ms @ batch 4,
-    # prof_tilefft_tpu2) and only ties at leg level, while the HBM
-    # transient scales with the batch (~1 GB at batch 4 on 2048^2 shapes).
-    # Batching paid off on the smaller 384^2 tiles; it no longer does.
-    raw = _os.environ.get("EUICOREG_TILEFFT_BATCH", "1")
-    try:
-        return max(1, int(raw))
-    except ValueError:
-        import warnings
-
-        warnings.warn(f"ignoring malformed EUICOREG_TILEFFT_BATCH={raw!r}")
-        return 1
+    """Estimated wall-clock of the per-tile transforms and readout."""
+    return n_tiles * n_planes * my * mx * _EST_S_PER_PLANE_PX
 
 
-_TILE_BATCH = _env_tile_batch()
+# stage-1 tiles per scan step: on the bench Carrington grid batch 4 took
+# 0.136 s against 0.143 s at batch 1 and 0.138 s at batch 8 (H100 at
+# 400 W, PERF.md); the transient grows with the batch (~1 GB at 4 on
+# 2048^2 shapes)
+_TILE_BATCH = 4
 
 from ..utils import memo  # noqa: E402
 
@@ -205,9 +187,8 @@ def _quad_eval(coeffs, u, v):
 def _tile_offset_bounds_jit(coeffs_d, th, tw, n_ty, n_tx):
     """Per-tile [min, max] of the rounded tile-center offsets over all lags,
     computed ON DEVICE: the (L, n_tiles, 2) table never exists on the host
-    (CLAUDE.md host memory discipline — fresh multi-MB host allocations can
-    page-fault for seconds), and at ~200 tiles the per-tile host einsum loop
-    cost ~0.2 s of the leg.  +-1 slack covers rounding differences vs the
+    (no per-tile host einsum loop over ~200 tiles).  +-1 slack covers
+    rounding differences vs the
     readout's own floor(c + 0.5) (same dtype, same arithmetic)."""
     dt = coeffs_d.dtype
     t = jnp.arange(n_ty * n_tx, dtype=jnp.int32)
@@ -236,6 +217,48 @@ def _per_tile_offset_bounds(coeffs, th, tw, n_ty, n_tx):
     return o_min_t, o_max_t  # each (n_tiles, 2) in (x, y) order
 
 
+def _tile_bounds(coeffs, h, w, n_ty, n_tx, th, tw):
+    """(dev_x, dev_y): the max over lags of :func:`_tile_bounds_per_lag`,
+    via corner/worst-case analysis only (no (L, n_tiles) arrays)."""
+    dev_l = _tile_bounds_per_lag(coeffs, h, w, n_ty, n_tx, th=th, tw=tw)
+    dev_x = float(np.max(dev_l[:, 0])) if dev_l.size else 0.0
+    dev_y = float(np.max(dev_l[:, 1])) if dev_l.size else 0.0
+    return dev_x, dev_y
+
+
+def _corner_centers(h, w, n_ty, n_tx, th, tw):
+    """Tile-center coordinates of the four corner tiles, (u, v) each (4,)."""
+    u0 = 0.5 * (0 + min(tw - 1, w - 1))
+    u1 = 0.5 * ((n_tx - 1) * tw + min(n_tx * tw - 1, w - 1))
+    v0 = 0.5 * (0 + min(th - 1, h - 1))
+    v1 = 0.5 * ((n_ty - 1) * th + min(n_ty * th - 1, h - 1))
+    uu, vv = np.meshgrid([u0, u1], [v0, v1], indexing="ij")
+    return uu.ravel(), vv.ravel()
+
+
+def _tile_bounds_per_lag(coeffs, h, w, n_ty, n_tx, th, tw):
+    """Per-lag bound (L, 2), (x, y) order, on how far the displacement
+    strays from its tile-center value inside any tile.  It scales ~linearly
+    with the lag magnitude, so the inner part of a lag grid usually passes
+    the tile-FFT gate even when the corner lags fail it (the hybrid route of
+    engine/carrington._carrington_select)."""
+    L = coeffs.shape[0]
+    uu, vv = _corner_centers(h, w, n_ty, n_tx, th, tw)
+    ck = np.ascontiguousarray(coeffs.transpose(0, 2, 1)).reshape(L * 2, 6)
+    one = np.ones_like(uu)
+    zero = 0 * uu
+    basis_gu = np.stack([one, zero, zero, 2.0 * uu, zero, vv])
+    basis_gv = np.stack([zero, one, zero, zero, 2.0 * vv, uu])
+    hx_m, hy_m = 0.5 * (tw - 1), 0.5 * (th - 1)
+    gu = np.abs((ck @ basis_gu).reshape(L, 2, -1))
+    gv = np.abs((ck @ basis_gv).reshape(L, 2, -1))
+    quad = (np.abs(coeffs[:, 3, :, None]) * (hx_m * hx_m)
+            + np.abs(coeffs[:, 4, :, None]) * (hy_m * hy_m)
+            + np.abs(coeffs[:, 5, :, None]) * (hx_m * hy_m))
+    dev = gu * hx_m + gv * hy_m + quad                        # (L, 2, 4)
+    return dev.max(axis=2)                                    # (L, 2) x/y
+
+
 def pick_tile_size(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
                    tile_sizes=_TILE_SIZES, max_tiles=_MAX_TILES):
     """Largest SQUARE tile size whose within-tile displacement deviation,
@@ -247,8 +270,7 @@ def pick_tile_size(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
         n_tx = -(-w // T)
         if n_ty * n_tx > max_tiles:
             continue
-        dev_x, dev_y, _ = _pq._tile_bounds(coeffs, h, w, n_ty, n_tx,
-                                           th=T, tw=T)
+        dev_x, dev_y = _tile_bounds(coeffs, h, w, n_ty, n_tx, th=T, tw=T)
         dev_det = max(dev_x, dev_y) * scale_det_per_grid
         if dev_det <= tol_det:
             return T, dev_det
@@ -263,7 +285,7 @@ def pick_tile_shape(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
     2048² bench config dev_x ≈ 4 × dev_y), so rectangles pass where the
     next-larger square fails: (384, 512) gives 24 tiles where the square
     gate stops at 384² = 36 — ~25% less stage-1 transform work and ~33%
-    less stage-2 readout, measured 0.83 → 0.75 s on the bench leg.
+    less stage-2 readout.
 
     Cost model: n_tiles × round128(th + span_y) × round128(tw + span_x),
     with the lag-driven offset span estimated once from the image-center
@@ -272,10 +294,10 @@ def pick_tile_shape(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
     ((th, tw), dev_det) or None when no candidate passes.
 
     Host-cost discipline: the deviation is a max over ALL lags, but running
-    the full-L bound for every (th, tw) candidate costs ~0.16 s of the
-    Carrington leg on the 1-CPU host (49 candidates × a (2L, 6) copy +
-    matmuls each).  A lag SUBSAMPLE gives a sound rejector — a subsample
-    max is a lower bound, so sub-dev > tol already disqualifies — and the
+    the full-L bound for every (th, tw) candidate costs 49 candidates × a
+    (2L, 6) copy + matmuls.  A lag SUBSAMPLE gives a sound rejector — a
+    subsample max is a lower bound, so sub-dev > tol already disqualifies
+    — and the
     survivors are exact-checked in estimated-cost order until one passes
     (the gate itself stays exact; typically 1-2 full-L calls)."""
     uc = np.array([(w - 1) / 2.0])
@@ -293,8 +315,8 @@ def pick_tile_shape(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
             n_tx = -(-w // tw)
             if n_ty * n_tx > max_tiles:
                 continue
-            dev_x, dev_y, _ = _pq._tile_bounds(sub, h, w, n_ty, n_tx,
-                                               th=th, tw=tw)
+            dev_x, dev_y = _tile_bounds(sub, h, w, n_ty, n_tx, th=th,
+                                        tw=tw)
             if max(dev_x, dev_y) * scale_det_per_grid > tol_det:
                 continue  # sound: the full-lag max can only be larger
             cost = (n_ty * n_tx * _round128(th + span_y + 2 * dev_y)
@@ -302,8 +324,8 @@ def pick_tile_shape(coeffs, h, w, scale_det_per_grid, tol_det=TOL_DET_PX,
             cands.append((cost, th, tw, n_ty, n_tx))
 
     for _cost, th, tw, n_ty, n_tx in sorted(cands):
-        dev_x, dev_y, _g = _pq._tile_bounds(coeffs, h, w, n_ty, n_tx,
-                                            th=th, tw=tw)
+        dev_x, dev_y = _tile_bounds(coeffs, h, w, n_ty, n_tx, th=th,
+                                    tw=tw)
         dev_det = max(dev_x, dev_y) * scale_det_per_grid
         if dev_det <= tol_det:
             return (th, tw), dev_det
@@ -320,16 +342,16 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
     Called when :func:`pick_tile_shape` rejected the FULL lag set: the
     within-tile deviation grows ~linearly with the lag magnitude, so on
     gradient-dominated coarse grids the inner part of a lag grid usually
-    meets ``tol_det`` even when the corner lags force the exact kernel.
+    meets ``tol_det`` even when the corner lags force the exact path.
     Finds the tile shape admitting the most lags individually (cost as the
     tiebreak among near-best shapes) so the engine can score the passing
-    set via tile-FFT surfaces and only the failing remainder via the
-    ~0.37 ms/lag exact Pallas kernel.
+    set via tile-FFT surfaces and only the failing remainder via the exact
+    per-lag evaluator.
 
     Returns ``((th, tw), pass_mask)`` with ``pass_mask`` an exact (L,)
     bool of per-lag gate decisions, or None when fewer than
     ``min_pass_frac`` of the lags pass for every candidate shape (the
-    hybrid's fixed stage-1 cost then outweighs the saved exact-kernel
+    hybrid's fixed stage-1 cost then outweighs the saved exact-path
     time).  Host-cost discipline mirrors pick_tile_shape: candidates are
     ranked on a lag subsample (per-lag bounds are exact per sampled lag),
     and only the leaders pay the full-L bound."""
@@ -346,7 +368,7 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
             n_tx = -(-w // tw)
             if n_ty * n_tx > max_tiles:
                 continue
-            dev_l = _pq._tile_bounds_per_lag(sub, h, w, n_ty, n_tx,
+            dev_l = _tile_bounds_per_lag(sub, h, w, n_ty, n_tx,
                                              th=th, tw=tw)
             ok = (dev_l.max(axis=1) * scale_det_per_grid) <= tol_det
             frac = float(ok.mean())
@@ -366,18 +388,18 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
     leaders = [c for c in cands if -c[0] >= best_frac - 0.02]
     leaders.sort(key=lambda c: c[1])
     for _nf, _cost, th, tw, n_ty, n_tx in leaders[:4]:
-        dev_l = _pq._tile_bounds_per_lag(coeffs, h, w, n_ty, n_tx,
+        dev_l = _tile_bounds_per_lag(coeffs, h, w, n_ty, n_tx,
                                          th=th, tw=tw)
         mask = (dev_l.max(axis=1) * scale_det_per_grid) <= tol_det
         if float(mask.mean()) < min_pass_frac:
             continue
-        # working-set screen (mirrors evaluate_select_tile_fft's HBM
+        # working-set screen (mirrors evaluate_select_tile_fft's memory
         # guard): the per-tile box span across the PASSING lags is
         # lag-driven and near-identical for every tile, so five
         # representative tile centers bound it well.  Without this the
         # hybrid would hand back shapes whose evaluation declines anyway
         # (wide spans on oversampled canvases need dense surfaces that
-        # dwarf HBM).
+        # dwarf device memory).
         cm = coeffs[mask]
         uu = np.array([0.5 * (tw - 1), (n_tx - 0.5) * tw - 0.5,
                        0.5 * (tw - 1), (n_tx - 0.5) * tw - 0.5,
@@ -397,7 +419,7 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
             max_batch = -(-max_batch // mesh.devices.size)
         batch = max(1, min(_TILE_BATCH, max_batch))
         item = jnp.dtype(compute_dtype).itemsize
-        group, rpad_bytes, bt = _hbm_group_plan(
+        group, rpad_bytes, bt = _mem_group_plan(
             order_hint, by_e, bx_e,
             n_ty * th + by_e - 1, n_tx * tw + bx_e - 1, item, batch)
         if group < batch:
@@ -408,29 +430,26 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
                 (rpad_bytes + batch * bt) / 1e9, rpad_bytes / 1e9, batch,
                 bt / 1e6)
             continue
-        # stage-1 cost screen AGAINST THE ALTERNATIVE: scoring the passing
-        # lags via the exact Pallas kernel costs ~_EST_PALLAS_S_PER_LAG
-        # each, so a hybrid shape is only worth returning when its tile
-        # transforms are cheaper than the per-lag kernel it displaces.
-        # On coarse wide grids (the r05 bench leg: ±1215 px offset span)
-        # EVERY shape fails this — the per-lag-pass leader (96, 96) needs
-        # 484 tiles × 1920x2560 transforms ≈ 130 s of stage-1 for lags the
-        # kernel scores in ~6 s — and the hybrid correctly declines rather
+        # stage-1 cost screen AGAINST THE ALTERNATIVE: a hybrid shape is
+        # only worth returning when its tile transforms are cheaper than
+        # the exact per-lag evaluator on the lags it displaces.  On coarse
+        # wide grids (the ±121-arcsec bench grid: ±1215 px offset span)
+        # every shape fails this — the per-lag-pass leader needs hundreds
+        # of tiles of ~2k-px transforms — and the hybrid declines rather
         # than hand back a shape whose evaluation would be abandoned (or
         # worse, run).  The 0.25 s floor keeps small-canvas hybrids (the
-        # gradient-dominated regime this picker was built for) viable on
-        # any backend.
+        # gradient-dominated regime this picker was built for) viable.
         n_surf, n_rf = _plane_counts(order_hint)
         est = _est_stage1_seconds(
             n_ty * n_tx, n_surf + n_rf + 3,
             _round128(th + by_e - 1), _round128(tw + bx_e - 1))
         n_pass = int(mask.sum())
-        if est > max(0.25, n_pass * _EST_PALLAS_S_PER_LAG):
+        exact_s = _est_exact_seconds(n_pass, h, w)
+        if est > max(0.25, exact_s):
             obs.logger.info(
                 "hybrid tile-FFT screen: shape (%d, %d) est stage-1 "
-                "%.1f s > per-lag kernel alternative ~%.1f s for %d "
-                "passing lags, skipping", th, tw, est,
-                n_pass * _EST_PALLAS_S_PER_LAG, n_pass)
+                "%.1f s > exact per-lag alternative ~%.1f s for %d "
+                "passing lags, skipping", th, tw, est, exact_s, n_pass)
             continue
         return (th, tw), mask
     return None
@@ -539,35 +558,29 @@ def _weights_1d(frac, order):
     ], axis=-1)
 
 
-# How the per-lag surface values are read out of the stacked boxes:
-# "take" = batched take_along_axis (hardware gather); "onehot" = 0/1
-# contraction on the MXU.  Selected by TPU measurement (see commit).
-_READOUT = "take"
-
-# MXU precision of the partial-inverse DFT matmuls.  bf16_3x (HIGH)
-# carries ~f32 dot-product accuracy — far above the 1e-6 x scale the peak
-# ordering needs — at half the passes of HIGHEST.  Measured on the TPU
-# bench config: leg 1.41 -> 1.34 s, max |corr - pallas-exact| unchanged at
-# 2.4e-3 of the peak range (shared pre-warp interpolation dominates),
-# argmax identical.
-_INV_PRECISION = jax.lax.Precision.HIGH
+# Algorithm of the float32 partial-inverse DFT matmuls, pinned: on the GPU
+# the default (and Precision.HIGH) lowers float32 dots to TF32, ~2.6e-4
+# relative error per product, which moved the Carrington argmax on the
+# bench grid.  Three bf16 passes (~4e-6 relative) ran the evaluator in
+# 0.136 s against 0.168 s at HIGHEST, with a near-peak error of 4.3e-6
+# (HIGHEST 1.3e-6) against a float64 run (H100, PERF.md).  Float64 inputs
+# always run at HIGHEST.
+_INV_PRECISION = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
 
 
 def _tiles_sum(g_stack, r_pad, coeffs_d, o_tab, o_min_g, tile_ids, order,
-               score, th, tw, n_ty, n_tx, my, mx, by, bx, precise, batch=1,
-               group=None):
+               score, th, tw, n_ty, n_tx, my, mx, by, bx, batch=1, group=None):
     """Two stages.  Stage 1 scans ``tile_ids``: per tile build the 58
     surface FFTs and evaluate the 66 correlation surfaces on the tile's own
     offset box (anchor ``o_tab[t]``, static size (by, bx)) with two partial
     matmul-DFTs; the scan emits the (66, by, bx) boxes.  Stage 2 combines
     per-lag values for MANY tiles in one batched computation with the lag
-    axis minor (lane-resident) — doing this per-tile inside the scan cost
-    ~6x the FFT work in small-shape VPU ops (measured on TPU: 0.73 s of a
-    0.88 s scan at L=14641).  Ids >= n_ty*n_tx are padding (multi-chip
-    round-up) and contribute zero.  Transform sizes (my, mx) are
-    rectangular: each only needs to cover T + its own axis span.  ``batch``
-    processes that many tiles per scan step with the DFT matmuls batched
-    (bigger MXU ops; HBM transient scales with it).
+    axis minor — per-tile combination inside the scan runs as many
+    small-shape ops.  Ids >= n_ty*n_tx are padding (multi-device round-up)
+    and contribute zero.  Transform sizes (my, mx) are rectangular: each
+    only needs to cover T + its own axis span.  ``batch`` processes that
+    many tiles per scan step with the transforms batched (the transient
+    memory scales with it).
 
     ``group`` (None = all tiles at once) bounds how many tiles' surface
     boxes are ever RESIDENT: tiles are processed in groups of ``group``
@@ -575,14 +588,13 @@ def _tiles_sum(g_stack, r_pad, coeffs_d, o_tab, o_min_g, tile_ids, order,
     groups.  On weakly-oversampled wide-lag grids the full (Tn, 66, by,
     bx) stack reaches tens of GB while one group stays ~100s of MB; a
     group of >= ~24 tiles keeps stage 2's batched shapes as large as the
-    historical whole-stack path, so the 6x small-shape penalty above never
-    re-appears."""
+    whole-stack path."""
     n_real = n_ty * n_tx
     Tn = tile_ids.shape[0]
     if group is None or group >= Tn:
         S_stack = _tiles_surfaces(g_stack, r_pad, o_tab, o_min_g, tile_ids,
                                   order, score, th, tw, n_ty, n_tx, my, mx,
-                                  by, bx, precise, batch)
+                                  by, bx, batch)
         return _combine_lags(S_stack, coeffs_d, o_tab, tile_ids, order,
                              th, tw, n_tx, n_real, by, bx, g_stack.dtype)
 
@@ -596,7 +608,7 @@ def _tiles_sum(g_stack, r_pad, coeffs_d, o_tab, o_min_g, tile_ids, order,
     def body(acc, gids):
         S = _tiles_surfaces(g_stack, r_pad, o_tab, o_min_g, gids, order,
                             score, th, tw, n_ty, n_tx, my, mx, by, bx,
-                            precise, batch)
+                            batch)
         comp = _combine_lags(S, coeffs_d, o_tab, gids, order,
                              th, tw, n_tx, n_real, by, bx, g_stack.dtype)
         return acc + comp, None
@@ -606,26 +618,17 @@ def _tiles_sum(g_stack, r_pad, coeffs_d, o_tab, o_min_g, tile_ids, order,
     return acc
 
 
-def _folded_dft_mats(my, mx, by, bx, np_dt):
-    """Real-folded DFT factor matrices for one tile chunk (host numpy, trace
-    -time constants).  Complex arithmetic lowers poorly on TPU (a complex
-    einsum becomes 4 separate half-size matmuls plus relayouts); folding the
-    real/imag planes into block matrices turns every stage into ONE large
-    real matmul (measured 1.5x on the forward, more with tile batching).
+def _inverse_box_mats(my, mx, by, bx, np_dt):
+    """Real-folded partial-inverse DFT matrices for one tile chunk (host
+    float64 numpy, trace-time constants): folding the real/imag planes into
+    block matrices makes each inverse stage ONE real matmul.
 
-    Returns (Fx, Fy2, Iy2, Ix2):
-      Fx  (mx, 2K)   forward x-stage on REAL input: [cos | -sin]
-      Fy2 (2my, 2my) forward y-stage on stacked [Xr; Xi]
+    Returns (Iy2, Ix2):
       Iy2 (2by, 2my) partial inverse y-stage on stacked [Pr; Pi]
       Ix2 (2, K, bx) partial inverse x-stage (real part only), hermitian
                      half-spectrum weights and 1/(my*mx) folded in
     """
     K = mx // 2 + 1
-    w = np.arange(mx)[:, None] * np.arange(K)[None, :] * (2 * np.pi / mx)
-    Fx = np.concatenate([np.cos(w), -np.sin(w)], axis=1)
-    a = np.arange(my)[:, None] * np.arange(my)[None, :] * (2 * np.pi / my)
-    FyR, FyI = np.cos(a), -np.sin(a)
-    Fy2 = np.block([[FyR, -FyI], [FyI, FyR]])
     b = np.arange(by)[:, None] * np.arange(my)[None, :] * (2 * np.pi / my)
     EyR, EyI = np.cos(b), np.sin(b)
     Iy2 = np.block([[EyR, -EyI], [EyI, EyR]])
@@ -634,23 +637,22 @@ def _folded_dft_mats(my, mx, by, bx, np_dt):
     scale = (whalf / (my * mx))[:, None]
     c = kx[:, None] * np.arange(bx)[None, :] * (2 * np.pi / mx)
     Ix2 = np.stack([np.cos(c) * scale, -np.sin(c) * scale])
-    return (jnp.asarray(Fx, dtype=np_dt), jnp.asarray(Fy2, dtype=np_dt),
-            jnp.asarray(Iy2, dtype=np_dt), jnp.asarray(Ix2, dtype=np_dt))
+    return jnp.asarray(Iy2, dtype=np_dt), jnp.asarray(Ix2, dtype=np_dt)
 
 
 def _tiles_surfaces(g_stack, r_pad, o_tab, o_min_g, tile_ids, order,
-                    score, th, tw, n_ty, n_tx, my, mx, by, bx, precise,
-                    batch=1):
+                    score, th, tw, n_ty, n_tx, my, mx, by, bx, batch=1):
     """Stage 1: scan tile chunks, emit the stacked (Tn, 66, by, bx) boxes."""
     nt = _tap_count(order) ** 2
     npairs = nt * (nt + 1) // 2
     K = mx // 2 + 1
     dt = g_stack.dtype
 
-    # static real-folded DFT matrices (see _folded_dft_mats); built in the
-    # compute dtype so float64 CPU runs keep float64 factors
+    # static inverse matrices (see _inverse_box_mats); built in the compute
+    # dtype so float64 runs keep float64 factors
     np_dt = np.float64 if dt == jnp.float64 else np.float32
-    Fx, Fy2, Iy2, Ix2 = _folded_dft_mats(my, mx, by, bx, np_dt)
+    Iy2, Ix2 = _inverse_box_mats(my, mx, by, bx, np_dt)
+    prec = _INV_PRECISION if dt == jnp.float32 else jax.lax.Precision.HIGHEST
 
     span_y = by - 1
     span_x = bx - 1
@@ -686,37 +688,15 @@ def _tiles_surfaces(g_stack, r_pad, o_tab, o_min_g, tile_ids, order,
     def one_chunk(carry, ts):
         # embeddings stay per-tile (B static unroll of the dynamic slices);
         # the transforms and inverse contractions run batched over the
-        # chunk axis c — larger matmuls for the MXU
+        # chunk axis c
         embs = [embed_one(ts[b]) for b in range(batch)]
         g_emb = jnp.stack([e[0] for e in embs])     # (B, nG, my, mx)
         r_emb = jnp.stack([e[1] for e in embs])     # (B, nR, my, mx)
 
-        if precise:
-            # direct (single-matrix) real-folded DFT at _INV_PRECISION
-            # (bf16_3x): ~6x the nominal FLOPs of the Cooley-Tukey
-            # factorization but each stage is ONE large real matmul — the
-            # CT path's 32x32 factor contractions underutilize the 128x128
-            # MXU so badly that direct measures 1.5x faster per tile and
-            # batches across tiles for another ~2.6x (TPU microbench at the
-            # bench shapes, 58x896x1024).  Accuracy ~1e-5 x scale: the tile
-            # path's error budget is dominated by the shared pre-warp
-            # interpolation (~1e-3 of peak range).
-            def fwd(x):                             # (B, n, my, mx) real
-                X1 = jnp.einsum("bcyw,wk->bcyk", x, Fx,
-                                precision=_INV_PRECISION)
-                Xstk = jnp.concatenate([X1[..., :K], X1[..., K:]], axis=2)
-                return jnp.einsum("zy,bcyk->bczk", Fy2, Xstk,
-                                  precision=_INV_PRECISION)  # (B,n,2my,K)
-
-            G = fwd(g_emb)
-            R = fwd(r_emb)
-            Gr, Gi = G[:, :, :my], G[:, :, my:]
-            Rr, Ri = R[:, :, :my], R[:, :, my:]
-        else:
-            Gc = jnp.fft.rfft2(g_emb, s=(my, mx))
-            Rc = jnp.fft.rfft2(r_emb, s=(my, mx))
-            Gr, Gi = jnp.real(Gc), jnp.imag(Gc)
-            Rr, Ri = jnp.real(Rc), jnp.imag(Rc)
+        Gc = jnp.fft.rfft2(g_emb, s=(my, mx))
+        Rc = jnp.fft.rfft2(r_emb, s=(my, mx))
+        Gr, Gi = jnp.real(Gc), jnp.imag(Gc)
+        Rr, Ri = jnp.real(Rc), jnp.imag(Rc)
 
         # products conj(G)*R, kept as separate real/imag planes:
         # Pr = Gr Rr + Gi Ri, Pi = Gr Ri - Gi Rr
@@ -744,10 +724,10 @@ def _tiles_surfaces(g_stack, r_pad, o_tab, o_min_g, tile_ids, order,
         # S = ZYr @ Exr - ZYi @ Exi is again ONE matmul (contraction
         # (s, k) = (2, K)).
         Z = jnp.einsum("zy,csyk->cszk", Iy2, Pstk,
-                       precision=_INV_PRECISION)    # (B, 66, 2by, K)
+                       precision=prec)              # (B, 66, 2by, K)
         Zs = Z.reshape(batch, Z.shape[1], 2, by, K)
         S_box = jnp.einsum("cspyk,pkx->csyx", Zs, Ix2,
-                           precision=_INV_PRECISION)  # (B, 66, by, bx)
+                           precision=prec)          # (B, 66, by, bx)
         return carry, S_box
 
     Tn = tile_ids.shape[0]
@@ -794,14 +774,8 @@ def _combine_lags(S_stack, coeffs_d, o_tab, tile_ids, order,
 
     flat = S_stack.reshape(Tn, S_stack.shape[1], by * bx)       # (Tn, 66, P)
     mask = inb.T[:, None, :].astype(dt) * valid_t[:, None, None]
-    if _READOUT == "onehot":
-        pos = jnp.arange(by * bx, dtype=jnp.int32)
-        oneh = (idx.T[:, :, None] == pos).astype(dt)            # (Tn, L, P)
-        vals = jnp.einsum("tlp,tkp->tkl", oneh, flat,
-                          precision=jax.lax.Precision.HIGHEST) * mask
-    else:
-        vals = jnp.take_along_axis(
-            flat, idx.T[:, None, :], axis=2) * mask             # (Tn, 66, L)
+    vals = jnp.take_along_axis(
+        flat, idx.T[:, None, :], axis=2) * mask                 # (Tn, 66, L)
 
     wx = _weights_1d(frac[..., 0], order)                       # (L, Tn, nta)
     wy = _weights_1d(frac[..., 1], order)
@@ -824,15 +798,14 @@ def _combine_lags(S_stack, coeffs_d, o_tab, tile_ids, order,
 
 @partial(jax.jit, static_argnames=(
     "order", "score", "th", "tw", "n_ty", "n_tx", "my", "mx", "by", "bx",
-    "precise", "batch", "group"))
+    "batch", "group"))
 def _evaluate_tiles(g_stack, r_pad, coeffs_d, o_tab, o_min_g, order, score,
-                    th, tw, n_ty, n_tx, my, mx, by, bx, precise, batch=1,
-                    group=None):
+                    th, tw, n_ty, n_tx, my, mx, by, bx, batch=1, group=None):
     """Single-device evaluation over all tiles."""
     ids = jnp.arange(n_ty * n_tx, dtype=jnp.int32)
     return _tiles_sum(g_stack, r_pad, coeffs_d, o_tab, o_min_g, ids, order,
-                      score, th, tw, n_ty, n_tx, my, mx, by, bx, precise,
-                      batch, group)
+                      score, th, tw, n_ty, n_tx, my, mx, by, bx, batch,
+                      group)
 
 
 from functools import lru_cache
@@ -840,17 +813,15 @@ from functools import lru_cache
 
 @lru_cache(maxsize=16)
 def _sharded_tiles_fn(mesh, order, score, th, tw, n_ty, n_tx, my, mx, by, bx,
-                      precise, batch=1, group=None):
+                      batch=1, group=None):
     """Memoized jit(shard_map) evaluator (a fresh closure per call would
-    re-trace the 58-FFT scan body and pay a remote compile-cache round-trip
-    per alignment — CLAUDE.md)."""
+    re-trace the 58-FFT scan body on every alignment)."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     def local(tile_ids, g, r, cf, otab, omg):
         s = _tiles_sum(g, r, cf, otab, omg, tile_ids, order, score,
-                       th, tw, n_ty, n_tx, my, mx, by, bx, precise, batch,
-                       group)
+                       th, tw, n_ty, n_tx, my, mx, by, bx, batch, group)
         return jax.lax.psum(s, "lags")
 
     return jax.jit(shard_map(
@@ -861,11 +832,11 @@ def _sharded_tiles_fn(mesh, order, score, th, tw, n_ty, n_tx, my, mx, by, bx,
 
 def _evaluate_tiles_sharded(mesh, g_stack, r_pad, coeffs_d, o_tab, o_min_g,
                             order, score, th, tw, n_ty, n_tx, my, mx, by, bx,
-                            precise, batch=1, group=None):
-    """Multi-chip evaluation: the tile axis is sharded over the mesh's
-    ``lags`` axis (fields replicated in every chip's HBM — the TPU-native
-    form of the reference's process fan-out); each device scans its tile
-    subset and the (L, 6) partial sums are combined with one psum over ICI."""
+                            batch=1, group=None):
+    """Multi-device evaluation: the tile axis is sharded over the mesh's
+    ``lags`` axis (fields replicated on every device — the device form of
+    the reference's process fan-out); each device scans its tile subset
+    and the (L, 6) partial sums are combined with one psum."""
     from jax.sharding import PartitionSpec as P
 
     from .lag_search import mesh_put
@@ -876,7 +847,7 @@ def _evaluate_tiles_sharded(mesh, g_stack, r_pad, coeffs_d, o_tab, o_min_g,
     ids = np.arange(n_pad, dtype=np.int32)  # >= n_tiles pad -> zero update
 
     fn = _sharded_tiles_fn(mesh, order, score, th, tw, n_ty, n_tx, my, mx,
-                           by, bx, precise, batch, group)
+                           by, bx, batch, group)
     with mesh:
         return fn(mesh_put(ids, mesh, P("lags")),
                   mesh_put(g_stack, mesh),
@@ -889,20 +860,19 @@ def _evaluate_tiles_sharded(mesh, g_stack, r_pad, coeffs_d, o_tab, o_min_g,
 def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
                              method="correlation", scale_det_per_grid=1.0,
                              tol_det=TOL_DET_PX, compute_dtype=jnp.float32,
-                             tile_size=None, precise=None, mesh=None,
-                             tile_batch=None):
+                             tile_size=None, mesh=None, tile_batch=None):
     """Score ``L`` quadratic-displacement lags via tile-local FFT surfaces.
 
-    Same inputs/semantics as pallas_quad.evaluate_select_carr_pallas;
-    returns (L,) float64 scores, or None when preconditions fail (odd
+    Same inputs/semantics as carrington.evaluate_quad_lags; returns (L,)
+    float64 scores, or None when preconditions fail (odd
     spline order, unsupported method, within-tile deviation above the
     detector-pixel tolerance).  ``scale_det_per_grid`` converts grid-pixel
     deviations to detector pixels (the canvas oversampling factor's
     inverse); pass 1.0 when unknown (conservative).
 
-    ``tile_batch``: tiles per scan step in stage 1 (DFT matmuls batched
-    over the chunk — bigger MXU ops, HBM transient scales with it);
-    defaults to the ``EUICOREG_TILEFFT_BATCH`` env var (1).
+    ``tile_batch``: tiles per scan step in stage 1 (transforms batched
+    over the chunk; the transient memory scales with it); defaults to
+    ``_TILE_BATCH``.
 
     ``tile_size``: int for square tiles, (th, tw) for rectangular ones, or
     None to auto-pick the cheapest rectangle meeting the deviation gate
@@ -946,8 +916,8 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
     # transform sizes and partial-inverse cost — stay per-tile small.
     with obs.stage("carr_tilefft_hostprep_s"):
         # memoized on the lag-set digest: the bounds repeat identically on
-        # warm calls, and the device dispatch + device_get round-trip was
-        # ~0.07 s of the engine leg (VERDICT r04 weak #7)
+        # warm calls, and each costs a device dispatch + device_get
+        # round-trip (VERDICT r04 weak #7)
         b_key = memo.digest(coeffs, th, tw, n_ty, n_tx, str(compute_dtype),
                             mesh is None)
         b_hit = _BOUNDS_CACHE.get(b_key)
@@ -980,7 +950,7 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
     if int((o_max - o_min).max()) > 2 * max(hp, wp):
         return None  # offsets far beyond the image extent: not worth it
 
-    # HBM working-set planning: the stacked surface boxes dominate.  On
+    # working-set planning: the stacked surface boxes dominate.  On
     # wide lag spans (weakly-oversampled grids) the full (Tn, n_surf, by,
     # bx) stack reaches tens-to-hundreds of GB, so tiles are processed in
     # GROUPS through stage 1+2 (see _tiles_sum) sized to fill the budget
@@ -993,14 +963,14 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
     n_tiles = n_ty * n_tx
     max_batch = n_tiles
     if mesh is not None and mesh.devices.size > 1:
-        # Clamp to the per-device shard: each chip scans only
+        # Clamp to the per-device shard: each device scans only
         # ceil(n_tiles/ndev) tiles, and a wider batch would pad every
         # chunk with clamped duplicate tiles (wasted stage-1 FFTs).
         max_batch = -(-n_tiles // mesh.devices.size)
     batch = max(1, min(int(tile_batch), max_batch))
     n_surf, n_rf = _plane_counts(order)
     item = jnp.dtype(compute_dtype).itemsize
-    group, rpad_bytes, bt = _hbm_group_plan(
+    group, rpad_bytes, bt = _mem_group_plan(
         order, by, bx, hp + int(o_max[1] - o_min[1]),
         wp + int(o_max[0] - o_min[0]), item, batch)
     if group < batch:
@@ -1012,12 +982,16 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
         return None
     if group >= n_tiles:
         group = None                                   # single-pass path
+    # the exact per-lag evaluator is the alternative: decline when the tile
+    # transforms are estimated to cost more (wide lag spans need huge
+    # per-tile boxes; the 0.25 s floor keeps small problems here)
     est_s = _est_stage1_seconds(n_tiles, n_surf + n_rf + 3, my, mx)
-    if est_s > _MAX_STAGE1_SECONDS:
+    exact_s = _est_exact_seconds(L, h, w)
+    if est_s > max(0.25, exact_s):
         obs.logger.info(
             "tile-FFT declined: est stage-1 transform time %.1f s "
-            "(%d tiles, %dx%d transforms) — wrong-shaped factorization",
-            est_s, n_tiles, my, mx)
+            "(%d tiles, %dx%d transforms) > exact per-lag ~%.1f s",
+            est_s, n_tiles, my, mx, exact_s)
         return None
 
     score = "pearson" if method == "correlation" else "residus"
@@ -1031,10 +1005,6 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
     else:
         warped_d = jnp.asarray(warped, dtype=compute_dtype)
         ref_d = jnp.asarray(ref_img, dtype=compute_dtype)
-    if precise is None:
-        precise = precise_fft.use_precise_fft(
-            None if not isinstance(warped_d, jax.Array)
-            else next(iter(warped_d.devices())).platform)
 
     g_stack, r_stack = _build_fields(warped_d, ref_d, order, score, hp, wp)
     # shifted r frame: r_pad[i, j] = r_global[i + o_min_y, j + o_min_x]
@@ -1067,12 +1037,11 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
         if mesh is not None and mesh.devices.size > 1:
             sums = _evaluate_tiles_sharded(
                 mesh, g_stack, r_pad, coeffs_d, o_tab_d, o_min_d, order,
-                score, th, tw, n_ty, n_tx, my, mx, by, bx, precise, batch,
-                group)
+                score, th, tw, n_ty, n_tx, my, mx, by, bx, batch, group)
         else:
             sums = _evaluate_tiles(g_stack, r_pad, coeffs_d, o_tab_d,
                                    o_min_d, order, score, th, tw, n_ty,
-                                   n_tx, my, mx, by, bx, precise, batch,
+                                   n_tx, my, mx, by, bx, batch,
                                    group=group)
         S = np.asarray(sums, dtype=np.float64)  # (L, 6)
 

@@ -10,7 +10,7 @@ Behavioural port of ``AlignmentSpice``
   zeroed (alignment_spice.py:255-261),
 * optionally the raster-scan solar rotation is folded into CDELT1
   (``_correct_solar_rotation``, alignment_spice.py:223-248),
-* then the standard TPU lag-search runs (helioprojective or Carrington).
+* then the standard device lag-search runs (helioprojective or Carrington).
 
 The L2/L3 level is inferred from the file path like the reference
 (alignment_spice.py:95-98) with a shape-based fallback when neither substring
@@ -485,7 +485,7 @@ class AlignementSpiceIterativeContextRaster(AlignmentSpice):
                                     coefficient_l3=None,
                                     batch_lags: bool = True,
                                     lag_chunk: int = 64):
-        """``batch_lags`` (TPU-native extension): score lag candidates in
+        """``batch_lags`` (device-engine extension): score lag candidates in
         chunks of ``lag_chunk`` — the raster rebuild is batched per imager
         frame across all lags of a chunk and the chunk is scored with one
         vmapped device reduction, instead of the reference's one full

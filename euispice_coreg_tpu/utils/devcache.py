@@ -1,14 +1,12 @@
 """Bounded device-array cache keyed by source-file identity.
 
-Host<->device transfers are the dominant fixed cost of a repeat alignment on
-tunneled TPU deployments (~20-100 MB/s: re-uploading one 2048^2 float32
-image costs 0.2-0.8 s, more than the whole 121x121 lag search).  Workflows
-like jitter correction re-use ONE reference image across every frame of a
-movie, so the upload is pure waste after the first alignment.
+Host->device transfers are a fixed cost of every repeat alignment.
+Workflows like jitter correction re-use ONE reference image across every
+frame of a movie, so the upload is pure waste after the first alignment.
 
 This cache keeps the device copy alive across :class:`Alignment` instances,
 keyed by ``(realpath, mtime, size, window)`` of the FITS HDU the array was
-loaded from plus the requested compute dtype.  It is the TPU-native
+loaded from plus the requested compute dtype.  It is the device-side
 counterpart of the reference's named POSIX shared-memory blocks, which every
 worker process re-attaches by name instead of re-copying
 (``/root/reference/euispice_coreg/utils/Util.py:948-967``).

@@ -2,9 +2,8 @@
 
 The Carrington engine's per-call host prep — the probe fit, the tile-shape
 gate, the per-tile offset bounds — are pure functions of (header scalars,
-grid limits, lag set), yet repeated identically on every warm call: ~0.17 s
-of the 0.65 s engine leg (BENCH_r04 stages.carr).  The jit closures are
-already memoized on static signatures (CLAUDE.md discipline); this module
+grid limits, lag set), yet repeated identically on every warm call.  The jit
+closures are already memoized on static signatures; this module
 extends the same idea to host-side derived values keyed by content digests
 of the input arrays.
 

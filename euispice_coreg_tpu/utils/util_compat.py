@@ -3,7 +3,7 @@
 Users migrating from the reference import ``AlignCommonUtil`` /
 ``AlignEUIUtil`` / ``AlignSpiceUtil`` / ``PlotFits`` from ``utils.Util``
 (``/root/reference/euispice_coreg/utils/Util.py``).  This module provides the
-same names, delegating to the TPU-native implementations.
+same names, delegating to the device-engine implementations.
 """
 from __future__ import annotations
 
@@ -377,7 +377,7 @@ class PlotFits:
 class MpUtils:
     """Shared-memory helpers (Util.py:948-967).
 
-    The TPU engine itself never uses shared memory (the lag fan-out lives on
+    The device engine itself never uses shared memory (the lag fan-out lives on
     device, PARITY.md #13); ``gen_shmm`` is provided for users who relied on
     it as a general utility.  The caller owns the segment lifetime
     (``shmm.close()`` / ``shmm.unlink()``).

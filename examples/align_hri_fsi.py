@@ -12,8 +12,6 @@ import numpy as np
 from euispice_coreg_tpu.hdrshift import Alignment
 from euispice_coreg_tpu.utils import jaxcfg
 
-# degrade to CPU when a pinned plugin backend is not importable here
-jaxcfg.ensure_backend_available()
 jaxcfg.enable_persistent_compile_cache()
 
 

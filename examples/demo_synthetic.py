@@ -4,7 +4,7 @@ Synthesizes a reference/mispointed image pair with an exactly known
 pointing error, writes them as FITS, runs the helioprojective and
 Carrington alignments through the public API, and checks the recovered
 shift (the reference's README examples require live SIDC archive files;
-this one runs anywhere, CPU or TPU).
+this one runs anywhere, on the CPU or a GPU).
 
     python examples/demo_synthetic.py [output_dir]
 """
@@ -20,8 +20,6 @@ from euispice_coreg_tpu.io import fits
 from euispice_coreg_tpu.utils import coords
 from euispice_coreg_tpu.utils import jaxcfg
 
-# degrade to CPU when a pinned plugin backend is not importable here
-jaxcfg.ensure_backend_available()
 jaxcfg.enable_persistent_compile_cache()
 
 TRUE_SHIFT = (8.0, -4.0)  # arcsec: the pointing error injected into hdr

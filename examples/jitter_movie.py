@@ -17,8 +17,6 @@ from euispice_coreg_tpu.jitter_correction import jitter_correction_imagers  # no
 from euispice_coreg_tpu.utils import timeutils  # noqa: E402
 from euispice_coreg_tpu.utils import jaxcfg
 
-# degrade to CPU when a pinned plugin backend is not importable here
-jaxcfg.ensure_backend_available()
 jaxcfg.enable_persistent_compile_cache()
 
 

@@ -2,9 +2,8 @@
 
 The crval-grid fast paths had crota coverage only through parity pins; these
 tests inject a REAL roll error and require each mode — helioprojective
-pallas, Carrington pallas_quad, Carrington tile_fft — to recover it through
-its own evaluator (spied to prove the fast path actually ran, not the exact
-fallback).  VERDICT r02 weak #6.
+auto/fast/exact, Carrington auto/tile_fft/fast — to recover it (tile_fft
+spied to prove its own evaluator ran, not a fallback).
 """
 import numpy as np
 import pytest
@@ -15,12 +14,10 @@ from euispice_coreg_tpu.engine import carrington as carr
 from euispice_coreg_tpu.hdrshift.alignment import Alignment
 
 
-@pytest.mark.parametrize("mode", ["pallas", "fast", "exact"])
+@pytest.mark.parametrize("mode", ["auto", "fast", "exact"])
 def test_helioprojective_crota_recovery_modes(tmp_path, mode):
     """A 1-degree roll error recovered through each helioprojective engine
-    mode; for pallas the fused kernel itself must have produced the result."""
-    from euispice_coreg_tpu.engine import pallas_warp
-
+    mode."""
     dl, hl, ds, hs = fx.make_helioprojective_pair(
         true_shift_arcsec=(0.0, 0.0), true_dcrota_deg=1.0)
     p_large, p_small = fx.write_pair_fits(tmp_path, dl, hl, ds, hs)
@@ -30,23 +27,9 @@ def test_helioprojective_crota_recovery_modes(tmp_path, mode):
         lag_crota=np.arange(-2.0, 2.5, 0.5),
         small_fov_window=0, large_fov_window=0, lag_search_mode=mode,
     )
-    ran = []
-    orig = pallas_warp.evaluate_lag_grid_pallas
-
-    def spy(*a, **k):
-        r = orig(*a, **k)
-        ran.append(r is not None)
-        return r
-
-    pallas_warp.evaluate_lag_grid_pallas = spy
-    try:
-        corr = A.align_using_helioprojective(return_type="corr")
-    finally:
-        pallas_warp.evaluate_lag_grid_pallas = orig
+    corr = A.align_using_helioprojective(return_type="corr")
     mi = np.unravel_index(np.nanargmax(corr), corr.shape)
     assert A.lag_crota[mi[4]] == pytest.approx(1.0)
-    if mode == "pallas":
-        assert ran and all(ran), "pallas kernel did not carry the search"
 
 
 def _carrington_roll_config(d_roll_true):
@@ -97,32 +80,25 @@ def _carrington_roll_config(d_roll_true):
     return hdr_given, small, ref, lonlims, latlims, shape
 
 
-@pytest.mark.parametrize("mode", ["pallas", "tile_fft", "fast"])
+@pytest.mark.parametrize("mode", ["auto", "tile_fft", "fast"])
 def test_carrington_crota_recovery_modes(mode):
     """A 1-degree roll error recovered through the Carrington select engine
-    in each lag mode; the spied fast evaluator must have produced the
-    result (not the gated fallback)."""
-    from euispice_coreg_tpu.engine import pallas_quad, tile_fft
+    in each lag mode; for tile_fft the spied tile-FFT evaluator must have
+    produced the result (not the gated fallback)."""
+    from euispice_coreg_tpu.engine import tile_fft
 
     d_true = 1.0
     hdr, small, ref, lonlims, latlims, shape = _carrington_roll_config(d_true)
     lrot = np.array([-1.0, 0.0, 1.0])
 
-    ran = {"pallas": [], "tile_fft": []}
-    orig_q = pallas_quad.evaluate_select_carr_pallas
+    ran = {"tile_fft": []}
     orig_t = tile_fft.evaluate_select_tile_fft
-
-    def spy_q(*a, **k):
-        r = orig_q(*a, **k)
-        ran["pallas"].append(r is not None)
-        return r
 
     def spy_t(*a, **k):
         r = orig_t(*a, **k)
         ran["tile_fft"].append(r is not None)
         return r
 
-    pallas_quad.evaluate_select_carr_pallas = spy_q
     tile_fft.evaluate_select_tile_fft = spy_t
     try:
         corr = carr.evaluate_lag_grid_carrington(
@@ -132,7 +108,6 @@ def test_carrington_crota_recovery_modes(mode):
             rate_wave="171", order=2, compute_dtype="float64",
             lag_mode=mode)
     finally:
-        pallas_quad.evaluate_select_carr_pallas = orig_q
         tile_fft.evaluate_select_tile_fft = orig_t
 
     mi = np.unravel_index(np.nanargmax(corr), corr.shape)

@@ -1,10 +1,10 @@
 """Sharded engine paths on a NON-default-device mesh.
 
-Round-1 regression: the sharded paths materialized operands with bare
+Regression: the sharded paths materialized operands with bare
 ``jnp.asarray`` (default device) before resharding onto the mesh, so a mesh
-living on a different backend/devices than the default device round-tripped
-— and crashed outright when the default backend was unhealthy (libtpu
-mismatch in MULTICHIP_r01).  These tests build the mesh from CPU devices
+living on different devices than the default device round-tripped through
+device 0 — and crashed outright when the default backend was unhealthy.
+These tests build the mesh from CPU devices
 EXCLUDING device 0 (the default), so any default-device materialization
 shows up as a placement mismatch, and pin parity with the unsharded path.
 """
@@ -16,7 +16,7 @@ from jax.sharding import Mesh
 
 import fixtures as fx
 from euispice_coreg_tpu.core.header import pc_from_crota
-from euispice_coreg_tpu.engine import fast_corr, lag_search, pallas_quad
+from euispice_coreg_tpu.engine import carrington, fast_corr, lag_search
 from euispice_coreg_tpu.utils import coords
 from euispice_coreg_tpu.core import wcs as _wcs
 
@@ -80,7 +80,7 @@ def test_fft_fast_path_on_nondefault_mesh():
     np.testing.assert_allclose(out, ref_out, rtol=1e-4, atol=1e-6)
 
 
-def test_pallas_quad_on_nondefault_mesh():
+def test_quad_eval_on_nondefault_mesh():
     rng = np.random.default_rng(5)
     n = 64
     small = rng.normal(size=(n, n)).astype(np.float32) + 10.0
@@ -89,13 +89,10 @@ def test_pallas_quad_on_nondefault_mesh():
     coeffs = np.zeros((L, 6, 2))
     coeffs[:, 2, 0] = np.linspace(-3.0, 3.0, L)
     coeffs[:, 2, 1] = np.linspace(2.0, -2.0, L)
-    ref_out = pallas_quad.evaluate_select_carr_pallas(
-        coeffs, small, ref, order=2, h=n, w=n, mesh=None)
+    ref_out = carrington.evaluate_quad_lags(coeffs, small, ref, order=2)
     mesh = nondefault_mesh(4)
-    with mesh:
-        out = pallas_quad.evaluate_select_carr_pallas(
-            coeffs, small, ref, order=2, h=n, w=n, mesh=mesh)
-    assert out is not None and ref_out is not None
+    out = carrington.evaluate_quad_lags(coeffs, small, ref, order=2,
+                                        mesh=mesh)
     np.testing.assert_allclose(out, ref_out, rtol=1e-5, atol=1e-7)
 
 

@@ -117,8 +117,8 @@ def test_coarse_grid_takes_tile_fft(tmp_path):
     small rectangular tile shapes (96/64 in _TILE_SIZES): their within-tile
     deviation is anisotropic, so a narrow-wide rectangle meets TOL_DET_PX
     where every large square fails.  Accuracy on this config matches the
-    exact engine to the shared-prewarp double-interpolation level (~7e-3,
-    same as the pallas fallback it replaces at ~9x the cost)."""
+    exact engine to the shared-prewarp double-interpolation level
+    (~7e-3)."""
     import fixtures as fx
     from euispice_coreg_tpu.engine import tile_fft
 
@@ -146,7 +146,8 @@ def test_coarse_grid_takes_tile_fft(tmp_path):
 
 def test_gate_reject_falls_back(tmp_path, monkeypatch):
     """When the deviation gate rejects (evaluate returns None) the engine
-    must fall through to the exact kernels and still recover the argmax."""
+    must fall through to the exact evaluator and still recover the
+    argmax."""
     import fixtures as fx
     from euispice_coreg_tpu.engine import tile_fft
 
@@ -401,11 +402,11 @@ def test_pick_tile_shape_prefers_cheap_rectangle():
     assert tile_fft.pick_tile_size(coeffs_bad, h, w, 1.0) is None
 
 
-def test_precise_folded_dft_matches_fft():
-    """The precise branch (real-folded direct-DFT matmuls — the TPU default,
-    see _folded_dft_mats) must reproduce the jnp.fft branch; CPU runs default
-    to precise=False so this pins the folded pipeline explicitly, unbatched
-    AND with a batched chunk + pad remainder (4 tiles, batch 3)."""
+def test_float32_matches_float64():
+    """float32 tile-FFT scores (the device dtype; partial inverse pinned at
+    _INV_PRECISION) against the float64 run of the same factorization,
+    unbatched and with a batched chunk + pad remainder (4 tiles, batch 3):
+    float32 rounding only, far inside the 1e-5 budget of this path."""
     from euispice_coreg_tpu.engine import tile_fft
 
     h = w = 256
@@ -426,16 +427,15 @@ def test_precise_folded_dft_matches_fft():
     coeffs[:, 1, 1] = -0.015
 
     for method in ("correlation", "residus_masked"):
-        kw = dict(order=2, h=h, w=w, method=method,
-                  compute_dtype="float64", tile_size=128)
+        kw = dict(order=2, h=h, w=w, method=method, tile_size=128)
         base = tile_fft.evaluate_select_tile_fft(
-            coeffs, warped, ref, precise=False, **kw)
+            coeffs, warped, ref, compute_dtype="float64", **kw)
         assert base is not None
         for b in (1, 3):
             got = tile_fft.evaluate_select_tile_fft(
-                coeffs, warped, ref, precise=True, tile_batch=b, **kw)
-            # float64 direct-DFT vs FFT: pure rounding-order differences
-            np.testing.assert_allclose(got, base, rtol=1e-8, atol=1e-10)
+                coeffs, warped, ref, compute_dtype="float32", tile_batch=b,
+                **kw)
+            np.testing.assert_allclose(got, base, rtol=1e-4, atol=1e-5)
 
 
 def test_tile_fft_sharded_matches_single_device():
@@ -486,19 +486,34 @@ def test_tile_fft_sharded_matches_single_device():
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
 
 
-def test_env_tile_batch_tolerates_malformed(monkeypatch):
-    """A malformed EUICOREG_TILEFFT_BATCH must degrade to the default (1)
-    with a warning, not crash engine import / every alignment."""
+@pytest.mark.parametrize("limit_gb", [16.0, 63.76])
+def test_mem_budget_follows_device_bytes_limit(monkeypatch, limit_gb):
+    """The stage-1 budget is a fixed share of what the device lets this
+    process allocate (memory_stats()["bytes_limit"]), not a constant."""
     from euispice_coreg_tpu.engine import tile_fft
 
-    for bad in ("", "2.0", "fast"):
-        monkeypatch.setenv("EUICOREG_TILEFFT_BATCH", bad)
-        with pytest.warns(UserWarning, match="EUICOREG_TILEFFT_BATCH"):
-            assert tile_fft._env_tile_batch() == 1
-    monkeypatch.setenv("EUICOREG_TILEFFT_BATCH", "3")
-    assert tile_fft._env_tile_batch() == 3
-    monkeypatch.setenv("EUICOREG_TILEFFT_BATCH", "0")
-    assert tile_fft._env_tile_batch() == 1  # clamped, not rejected
+    class Dev:
+        def memory_stats(self):
+            return {"bytes_limit": int(limit_gb * 1e9)}
+
+    got = tile_fft._mem_budget_bytes(Dev())
+    assert got == pytest.approx(tile_fft._MEM_BUDGET_FRACTION * limit_gb * 1e9)
+
+
+def test_mem_budget_without_device_stats_uses_host_memory():
+    """Backends that report no memory stats (the CPU) budget against the
+    host's physical memory."""
+    import os
+
+    from euispice_coreg_tpu.engine import tile_fft
+
+    class Dev:
+        def memory_stats(self):
+            return None
+
+    host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert tile_fft._mem_budget_bytes(Dev()) == pytest.approx(
+        tile_fft._MEM_BUDGET_FRACTION * host)
 
 
 def test_tile_batch_clamped_to_per_device_shard(monkeypatch):
@@ -534,10 +549,10 @@ def test_tile_batch_clamped_to_per_device_shard(monkeypatch):
     orig = tile_fft._evaluate_tiles_sharded
 
     def spy(mesh_, g, r, cf, otab, omg, order, score, th, tw, n_ty, n_tx,
-            my, mx, by, bx, precise, batch=1, group=None):
+            my, mx, by, bx, batch=1, group=None):
         seen["batch"] = batch
         return orig(mesh_, g, r, cf, otab, omg, order, score, th, tw, n_ty,
-                    n_tx, my, mx, by, bx, precise, batch, group)
+                    n_tx, my, mx, by, bx, batch, group)
 
     monkeypatch.setattr(tile_fft, "_evaluate_tiles_sharded", spy)
     got = tile_fft.evaluate_select_tile_fft(
@@ -550,10 +565,10 @@ def test_per_lag_hybrid_splits_and_matches_exact():
     """Gradient-dominated lag sets (within-tile deviation ~linear in the
     per-lag gradient) must REJECT the full-set gate, yet the per-lag hybrid
     scores the passing majority via tile-FFT and the remainder via the
-    exact Pallas kernel — merged values match the all-Pallas (exact) run to
+    exact per-lag evaluator — merged values match the all-exact run to
     the tile approximation level on the passing lags and exactly on the
     rest."""
-    from euispice_coreg_tpu.engine import pallas_quad, tile_fft
+    from euispice_coreg_tpu.engine import tile_fft
 
     h = w = 256
     rng = np.random.default_rng(17)
@@ -583,23 +598,22 @@ def test_per_lag_hybrid_splits_and_matches_exact():
     assert mask[:int(mask.sum())].all() and not mask[int(mask.sum()):].any()
 
     # the engine-dispatch merge: tile-FFT on the passing subset (explicit
-    # tile_size skips the full gate), exact Pallas kernel on the remainder
+    # tile_size skips the full gate), exact evaluator on the remainder
     vals_t = tile_fft.evaluate_select_tile_fft(
         coeffs[mask], warped, ref, order=2, h=h, w=w, method="correlation",
         compute_dtype="float64", tile_size=(th, tw))
-    vals_p = pallas_quad.evaluate_select_carr_pallas(
-        coeffs[~mask], warped, ref, order=2, h=h, w=w,
-        method="correlation", interpret=True)
-    assert vals_t is not None and vals_p is not None
+    vals_p = carr.evaluate_quad_lags(
+        coeffs[~mask], warped, ref, order=2, method="correlation",
+        compute_dtype="float64")
+    assert vals_t is not None
     got = np.empty(L)
     got[mask] = vals_t
     got[~mask] = vals_p
 
-    want = pallas_quad.evaluate_select_carr_pallas(
-        coeffs, warped, ref, order=2, h=h, w=w, method="correlation",
-        interpret=True)
-    assert want is not None
-    # failing lags ride the same exact kernel -> tight; passing lags carry
+    want = carr.evaluate_quad_lags(
+        coeffs, warped, ref, order=2, method="correlation",
+        compute_dtype="float64")
+    # failing lags ride the same exact evaluator -> tight; passing lags carry
     # the bounded tile approximation
     np.testing.assert_allclose(got[~mask], want[~mask], rtol=1e-9, atol=1e-11)
     np.testing.assert_allclose(got, want, atol=5e-3)
@@ -609,7 +623,7 @@ def test_per_lag_hybrid_splits_and_matches_exact():
 def test_hybrid_dispatch_end_to_end():
     """Wide-lag grids through the real _carrington_select dispatch: the
     full-set gate rejects, the per-lag hybrid scores the passing majority
-    via tile-FFT, the remainder rides the pallas/select chain, and the
+    via tile-FFT, the remainder rides the exact evaluator, and the
     merged surface ranks like the all-select twin.  (±160 arcsec corners on
     the 256² bench-like geometry: 79 of 81 lags pass per-lag.)"""
     hdr, small, ref, lonlims, latlims, shape, _ = bench_like_config()
@@ -634,7 +648,7 @@ def test_hybrid_dispatch_end_to_end():
             small, ref, sc, 0.0, "171", lonlims, latlims, shape,
             l1, l1, [0.0], [0.0], [0.0],
             order=2, method="correlation", compute_dtype="float64",
-            batch_size=8, use_pallas=True, use_tile_fft=True)
+            batch_size=8, use_tile_fft=True)
     finally:
         tile_fft.pick_tile_shape_hybrid = orig
     assert got is not None
@@ -646,7 +660,7 @@ def test_hybrid_dispatch_end_to_end():
         small, ref, sc, 0.0, "171", lonlims, latlims, shape,
         l1, l1, [0.0], [0.0], [0.0],
         order=2, method="correlation", compute_dtype="float64",
-        batch_size=8, use_pallas=False, use_tile_fft=False)
+        batch_size=8, use_tile_fft=False)
     assert want is not None
     # tile approximation at the 0.15-det-px gate edge moves off-peak
     # values by up to ~0.03 here; the ranking (and the argmax) must hold
@@ -656,10 +670,10 @@ def test_hybrid_dispatch_end_to_end():
 
 def test_mem_guard_declines_wide_span(monkeypatch):
     """Wide per-lag offset spans need dense surface boxes whose stacked
-    size dwarfs HBM (the r04 coarse bench leg hit a 434 GB stage-1
-    allocation on the real TPU): both the evaluator and the hybrid picker
-    must decline BEFORE any device work, and the same geometry must run
-    under a budget that admits it."""
+    size dwarfs device memory (the coarse bench grid would need a ~400 GB
+    stage-1 allocation): both the evaluator and the hybrid picker must
+    decline BEFORE any device work, and the same geometry must run under a
+    budget that admits it."""
     from euispice_coreg_tpu.engine import tile_fft
 
     h = w = 256
@@ -675,14 +689,14 @@ def test_mem_guard_declines_wide_span(monkeypatch):
     coeffs[:, 2, 0] = np.linspace(-80.0, 80.0, L)
     coeffs[:, 2, 1] = np.linspace(60.0, -60.0, L)
 
-    monkeypatch.setenv("EUICOREG_TILEFFT_MEM_GB", "0.002")
+    monkeypatch.setattr(tile_fft, "_mem_budget_bytes", lambda *a: 0.002e9)
     out = tile_fft.evaluate_select_tile_fft(
         coeffs, warped, ref, order=2, h=h, w=w, method="correlation",
         compute_dtype="float64", tile_size=64)
     assert out is None
     assert tile_fft.pick_tile_shape_hybrid(coeffs, h, w, 1.0) is None
 
-    monkeypatch.setenv("EUICOREG_TILEFFT_MEM_GB", "8")
+    monkeypatch.setattr(tile_fft, "_mem_budget_bytes", lambda *a: 8e9)
     out = tile_fft.evaluate_select_tile_fft(
         coeffs, warped, ref, order=2, h=h, w=w, method="correlation",
         compute_dtype="float64", tile_size=64)
@@ -693,9 +707,9 @@ def test_mem_guard_declines_wide_span(monkeypatch):
 
 def test_hybrid_screen_declines_when_kernel_is_cheaper(monkeypatch):
     """The hybrid picker's stage-1-cost screen: when the estimated tile
-    transforms cost more than scoring the passing lags on the per-lag
-    kernel (~0.4 ms each), every candidate is skipped and the hybrid
-    declines — the coarse wide-grid regime (PARITY.md roofline)."""
+    transforms cost more than scoring the passing lags on the exact per-lag
+    evaluator, every candidate is skipped and the hybrid declines — the
+    coarse wide-grid regime."""
     from euispice_coreg_tpu.engine import tile_fft
 
     h = w = 256
@@ -707,13 +721,13 @@ def test_hybrid_screen_declines_when_kernel_is_cheaper(monkeypatch):
 
     assert tile_fft.pick_tile_shape_hybrid(coeffs, h, w, 1.0) is not None
     # collapse the planning throughput: every shape's est now dwarfs the
-    # kernel alternative, so the screen must reject them all
-    monkeypatch.setattr(tile_fft, "_EST_TFLOPS", 1.0)
+    # exact alternative, so the screen must reject them all
+    monkeypatch.setattr(tile_fft, "_EST_S_PER_PLANE_PX", 1.0)
     assert tile_fft.pick_tile_shape_hybrid(coeffs, h, w, 1.0) is None
 
 
 def test_grouped_scan_matches_single_pass(monkeypatch):
-    """HBM-bounded GROUP scan parity: with a budget that only admits part
+    """Memory-bounded GROUP scan parity: with a budget that only admits part
     of the tile set at once, _tiles_sum must chunk the tiles through
     stage 1+2 with a running (L, 6) sum — and produce the same scores as
     the single-pass path (the only difference is float summation order)."""
@@ -736,17 +750,18 @@ def test_grouped_scan_matches_single_pass(monkeypatch):
     coeffs[:, 0, 0] = 0.004
 
     kw = dict(order=2, h=h, w=w, method="correlation",
-              compute_dtype="float64", tile_size=64)  # 4x4 = 16 tiles
+              compute_dtype="float64", tile_size=64,   # 4x4 = 16 tiles
+              tile_batch=1)
 
     plan = {}
-    orig_plan = tile_fft._hbm_group_plan
+    orig_plan = tile_fft._mem_group_plan
 
     def cap(*a):
         g, rpad, bt = orig_plan(*a)
         plan.update(group=g, rpad=rpad, bt=bt)
         return g, rpad, bt
 
-    monkeypatch.setattr(tile_fft, "_hbm_group_plan", cap)
+    monkeypatch.setattr(tile_fft, "_mem_group_plan", cap)
     want = tile_fft.evaluate_select_tile_fft(coeffs, warped, ref, **kw)
     assert want is not None
     assert plan["group"] >= 16  # baseline ran single-pass over all 16 tiles
@@ -754,7 +769,7 @@ def test_grouped_scan_matches_single_pass(monkeypatch):
     # budget that fits the r stack + exactly 5 tiles' boxes -> group=5,
     # 16 tiles scan as 4 groups (last one padded)
     monkeypatch.setattr(tile_fft, "_mem_budget_bytes",
-                        lambda: plan["rpad"] + 5 * plan["bt"] + 1)
+                        lambda *a: plan["rpad"] + 5 * plan["bt"] + 1)
     seen = {}
     orig_eval = tile_fft._evaluate_tiles
 
@@ -774,10 +789,10 @@ def test_hybrid_interior_nan_bands_match_exact():
     off-disk fringes) on both canvases, with a gradient-dominated lag set
     that forces the per-lag hybrid split.  The tile-FFT side carries the
     NaN masking through its surface planes (M, M a, ...), so the merged
-    hybrid scores must match the all-exact kernel on values and argmax —
-    the failure mode CLAUDE.md documents for weight-plane mixing
-    (0 * NaN = NaN infection beyond the tap footprint) must not appear."""
-    from euispice_coreg_tpu.engine import pallas_quad, tile_fft
+    hybrid scores must match the all-exact evaluator on values and argmax
+    — weight-plane mixing's failure mode (0 * NaN = NaN infection beyond
+    the tap footprint) must not appear."""
+    from euispice_coreg_tpu.engine import tile_fft
 
     h = w = 256
     rng = np.random.default_rng(29)
@@ -808,18 +823,17 @@ def test_hybrid_interior_nan_bands_match_exact():
     vals_t = tile_fft.evaluate_select_tile_fft(
         coeffs[mask], warped, ref, order=2, h=h, w=w, method="correlation",
         compute_dtype="float64", tile_size=(th, tw))
-    vals_p = pallas_quad.evaluate_select_carr_pallas(
-        coeffs[~mask], warped, ref, order=2, h=h, w=w,
-        method="correlation", interpret=True)
-    assert vals_t is not None and vals_p is not None
+    vals_p = carr.evaluate_quad_lags(
+        coeffs[~mask], warped, ref, order=2, method="correlation",
+        compute_dtype="float64")
+    assert vals_t is not None
     got = np.empty(L)
     got[mask] = vals_t
     got[~mask] = vals_p
 
-    want = pallas_quad.evaluate_select_carr_pallas(
-        coeffs, warped, ref, order=2, h=h, w=w, method="correlation",
-        interpret=True)
-    assert want is not None
+    want = carr.evaluate_quad_lags(
+        coeffs, warped, ref, order=2, method="correlation",
+        compute_dtype="float64")
     np.testing.assert_allclose(got[~mask], want[~mask], rtol=1e-9,
                                atol=1e-11)
     np.testing.assert_allclose(got, want, atol=5e-3)

@@ -191,7 +191,7 @@ def test_with_retries_transient_then_success():
     def flaky():
         calls["n"] += 1
         if calls["n"] < 2:
-            raise JaxRuntimeError("UNAVAILABLE: TPU worker process crashed")
+            raise JaxRuntimeError("UNAVAILABLE: device runtime crashed")
         return 42
 
     assert with_retries(flaky, retries=2, backoff_s=0.0)() == 42
